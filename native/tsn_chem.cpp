@@ -1,13 +1,13 @@
 // tsn_chem.cpp — native SMILES -> (RDKit-exact Morgan fingerprint,
 // canonical SMILES) pipeline.
 //
-// C++ port of gpusimilarity_tpu/utils/smiles.py + rdmorgan.py (this repo's
+// C++ port of gpusimilarity_jax/utils/smiles.py + rdmorgan.py (this repo's
 // own Python implementation; the reference delegates the same job to RDKit's
 // C++ via gpusim_utils.py:55-66). Semantics must match the Python modules
 // BYTE-FOR-BYTE: tests compare both over the reference fixture corpus and
 // fuzz inputs. The Python modules are the specification; read them first.
 //
-// Built into libtpusim_native.so next to tpusim_native.cpp.
+// Built into libjaxsim_native.so next to jaxsim_native.cpp.
 
 #include <algorithm>
 #include <cstdint>

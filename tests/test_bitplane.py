@@ -5,10 +5,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from gpusimilarity_tpu.models import FingerprintDB
-from gpusimilarity_tpu.ops import bitplane as bp
-from gpusimilarity_tpu.ops.scan import popcount_rows_np
-from gpusimilarity_tpu.utils.fsim import read_fsim
+from gpusimilarity_jax.models import FingerprintDB
+from gpusimilarity_jax.ops import bitplane as bp
+from gpusimilarity_jax.ops.scan import popcount_rows_np
+from gpusimilarity_jax.utils.fsim import read_fsim
 
 from conftest import random_fingerprint_data
 

@@ -5,15 +5,15 @@ import os
 import numpy as np
 import pytest
 
-from gpusimilarity_tpu.utils.fingerprints import (
+from gpusimilarity_jax.utils.fingerprints import (
     BITCOUNT,
     FingerprintError,
     fingerprint_bin_to_words,
     smiles_to_fingerprint_bin,
     smiles_to_query_words,
 )
-from gpusimilarity_tpu.utils.rdmorgan import morgan_bits, smiles_to_morgan_packed
-from gpusimilarity_tpu.utils.smiles import (
+from gpusimilarity_jax.utils.rdmorgan import morgan_bits, smiles_to_morgan_packed
+from gpusimilarity_jax.utils.smiles import (
     SmilesError,
     canonical_smiles,
     parse_smiles,
@@ -133,7 +133,7 @@ class TestCanonical:
     def test_reference_fixture_corpus(self):
         """Every real ZINC SMILES in the reference fixture parses,
         canonicalizes idempotently, and fingerprints order-invariantly."""
-        from gpusimilarity_tpu.utils.fsim import read_fsim
+        from gpusimilarity_jax.utils.fsim import read_fsim
 
         path = "/root/reference/test/small.fsim"
         if not os.path.exists(path):
@@ -204,8 +204,8 @@ class TestFingerprintFrontend:
 
     def test_end_to_end_self_search(self, rng):
         """Full slice: SMILES -> fingerprints -> FingerprintData -> engine."""
-        from gpusimilarity_tpu.models import FingerprintDB
-        from gpusimilarity_tpu.utils.fsim import FingerprintData
+        from gpusimilarity_jax.models import FingerprintDB
+        from gpusimilarity_jax.utils.fsim import FingerprintData
 
         corpus = ["CCO", "CCCO", "c1ccccc1", "c1ccncc1", "CC(=O)O",
                   "CC(C)CC", "OCC(O)CO", "Clc1ccccc1"]
@@ -288,7 +288,7 @@ class TestAromaticityPerception:
         assert len(non_arom) == 2
 
     def test_kekulize_writer_roundtrip(self):
-        from gpusimilarity_tpu.utils.smiles import write_smiles
+        from gpusimilarity_jax.utils.smiles import write_smiles
 
         for s in ("c1ccccc1", "c1cc[nH]c1", "c1ccc2ccccc2c1",
                   "O=c1cccc[nH]1", "c1cc[nH+]cc1"):
@@ -297,7 +297,7 @@ class TestAromaticityPerception:
             assert canonical_smiles(kek) == canonical_smiles(s)
 
     def test_unkekulizable_raises(self):
-        from gpusimilarity_tpu.utils.smiles import kekulized
+        from gpusimilarity_jax.utils.smiles import kekulized
 
         with pytest.raises(SmilesError):
             # 5 aromatic CH each needing a double bond: odd count, no
@@ -311,7 +311,7 @@ class TestAromaticityPerception:
         well under a second either way."""
         import time
 
-        from gpusimilarity_tpu.utils.smiles import kekulized
+        from gpusimilarity_jax.utils.smiles import kekulized
 
         n = 40  # 240 atoms
         s = "c1ccc(" * (n - 1) + "c1ccccc1" + ")cc1" * (n - 1)
@@ -364,7 +364,7 @@ class TestCanonicalPermutationInvariance:
     (round-1 advisor finding)."""
 
     def _permuted(self, mol, perm):
-        from gpusimilarity_tpu.utils.smiles import Atom, Bond, Molecule
+        from gpusimilarity_jax.utils.smiles import Atom, Bond, Molecule
         import dataclasses
 
         inv = [0] * len(perm)
@@ -404,7 +404,7 @@ class TestCanonicalPermutationInvariance:
     def test_atom_order_invariant(self, smi):
         import random
 
-        from gpusimilarity_tpu.utils.smiles import (
+        from gpusimilarity_jax.utils.smiles import (
             canonical_ranks, parse_smiles, write_smiles,
         )
 

@@ -4,8 +4,8 @@ import math
 
 import pytest
 
-from gpusimilarity_tpu.utils.depict import find_rings, layout, mol_to_svg, smiles_to_svg
-from gpusimilarity_tpu.utils.smiles import parse_smiles
+from gpusimilarity_jax.utils.depict import find_rings, layout, mol_to_svg, smiles_to_svg
+from gpusimilarity_jax.utils.smiles import parse_smiles
 
 CASES = [
     "CCO",
@@ -67,8 +67,8 @@ class TestSvg:
 
 class TestServerHtml:
     def test_results_page_has_depictions(self):
-        from gpusimilarity_tpu.models import DatabaseRegistry
-        from gpusimilarity_tpu.serve.server import SearchService
+        from gpusimilarity_jax.models import DatabaseRegistry
+        from gpusimilarity_jax.serve.server import SearchService
         from test_server import corpus_data
 
         reg = DatabaseRegistry()

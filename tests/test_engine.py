@@ -9,14 +9,14 @@ virtual 8-device mesh.
 import numpy as np
 import pytest
 
-from gpusimilarity_tpu.models import (
+from gpusimilarity_jax.models import (
     DatabaseRegistry,
     FingerprintDB,
     merge_results,
     SearchResult,
 )
-from gpusimilarity_tpu.ops.scan import scores_np
-from gpusimilarity_tpu.utils.fsim import read_fsim, write_fsim
+from gpusimilarity_jax.ops.scan import scores_np
+from gpusimilarity_jax.utils.fsim import read_fsim, write_fsim
 
 from conftest import random_fingerprint_data
 
@@ -308,8 +308,8 @@ class TestCompileBuckets:
         library row 0 must not hit a fresh compile after warmup (round-2
         VERDICT Weak #4: warmup derived its only bucket from row 0)."""
         from conftest import random_fingerprint_data
-        from gpusimilarity_tpu.ops.bitplane import plane_bucket_for
-        from gpusimilarity_tpu.ops.scan import popcount_rows_np
+        from gpusimilarity_jax.ops.bitplane import plane_bucket_for
+        from gpusimilarity_jax.ops.scan import popcount_rows_np
 
         # density 0.1 -> ~102 bits/row -> rows live in bucket 128
         data = random_fingerprint_data(rng, count=400, density=0.1, dbkey="w")
@@ -334,7 +334,7 @@ class TestCompileBuckets:
         from unittest import mock
 
         from conftest import random_fingerprint_data
-        from gpusimilarity_tpu.parallel import sharded
+        from gpusimilarity_jax.parallel import sharded
 
         data = random_fingerprint_data(rng, count=400, dbkey="")
         db = FingerprintDB(data)
@@ -403,7 +403,7 @@ class TestKBucketPromotion:
         # over-fetch exactness is only guaranteed on structured data (the
         # documented fold contract) — uniform random rows score in one
         # tight band and the true top-k can fall outside ANY small fetch
-        from gpusimilarity_tpu.utils.fsim import FingerprintData
+        from gpusimilarity_jax.utils.fsim import FingerprintData
 
         bits = rng.random((2048, 1024)) < 0.06
         q_bits = rng.random(1024) < 0.3
@@ -464,7 +464,7 @@ class TestKBucketPromotion:
         pin and answer from the exact bucket mid-churn)."""
         import threading
 
-        from gpusimilarity_tpu.utils.fsim import FingerprintData
+        from gpusimilarity_jax.utils.fsim import FingerprintData
 
         bits = rng.random((30000, 1024)) < 0.06
         data = FingerprintData(

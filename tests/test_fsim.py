@@ -6,8 +6,8 @@ import zlib
 import numpy as np
 import pytest
 
-from gpusimilarity_tpu.utils import qtstream
-from gpusimilarity_tpu.utils.fsim import (
+from gpusimilarity_jax.utils import qtstream
+from gpusimilarity_jax.utils.fsim import (
     FingerprintData,
     merge_fsim,
     read_fsim,

@@ -1,11 +1,11 @@
 """Cross-mode integration: every engine configuration returns identical
-results on the same data (dense XLA / dense Pallas / bitplane, folded or not,
-through the registry and server wiring)."""
+results on the same data (dense / bitplane XLA / bitplane Pallas kernel,
+folded or not, through the registry and server wiring)."""
 
 import numpy as np
 import pytest
 
-from gpusimilarity_tpu.models import DatabaseRegistry, FingerprintDB
+from gpusimilarity_jax.models import DatabaseRegistry, FingerprintDB
 
 from conftest import random_fingerprint_data
 
@@ -29,7 +29,7 @@ class TestModeParity:
     @pytest.mark.parametrize(
         "kwargs",
         [
-            {"scan_mode": "dense", "use_pallas": True},
+            {"scan_mode": "bitplane", "use_pallas": True, "interpret": True},
             {"scan_mode": "bitplane"},
             {"scan_mode": "dense", "chunk_cols": 4096},
         ],
@@ -68,16 +68,19 @@ class TestModeParity:
                 assert gs == exp.scores[exp.ids.index(gid)]
 
     def test_server_with_socket_and_pallas(self, data, tmp_path):
-        """SimilarityServer wiring: socket protocol + pallas engine together."""
+        """SimilarityServer wiring: socket protocol + the bitplane Pallas
+        kernel (interpreted) together."""
         import socket
 
-        from gpusimilarity_tpu.serve.server import SimilarityServer
-        from gpusimilarity_tpu.utils.fsim import write_fsim
+        from gpusimilarity_jax.serve.server import SimilarityServer
+        from gpusimilarity_jax.utils.fsim import read_fsim, write_fsim
         from tests_socket_helpers import encode_request, decode_response
 
         write_fsim(tmp_path / "m.fsim", data)
-        reg = DatabaseRegistry.from_fsim_files(
-            [str(tmp_path / "m.fsim")], use_pallas=True
+        reg = DatabaseRegistry()
+        reg.add(
+            "m", read_fsim(tmp_path / "m.fsim"), scan_mode="bitplane",
+            use_pallas=True, interpret=True,
         )
         srv = SimilarityServer(
             reg, port=0, window_ms=1.0, socket_name="itest.sock"
@@ -107,29 +110,30 @@ class TestModeParity:
 
 class TestPallasBitplane:
     def test_pallas_bitplane_matches_xla(self):
-        """Flagship kernel parity in interpreter mode (slow: ~1 min).
+        """Kernel parity with the XLA phase 1, in interpreter mode.
 
-        The kernel needs >=262144 columns per shard, so this runs on a
-        single-device mesh with an exactly-aligned store.
+        A single-device mesh keeps every column on one shard, so the
+        engine reaches the two-phase branch (and the kernel) at a size the
+        interpreter runs quickly.
         """
         import jax
 
-        from gpusimilarity_tpu.parallel.mesh import make_mesh
+        from gpusimilarity_jax.parallel.mesh import make_mesh
 
         mesh = make_mesh(jax.devices()[:1])
         # 524288 cols: n_blocks=256 > the 128-candidate k_fetch bucket, so
-        # the engine reaches the two-phase branch and the Pallas kernel
+        # the engine reaches the two-phase branch and the kernel
         # (262144 cols would land in the small-path shortcut)
         data = random_fingerprint_data(
             np.random.default_rng(5), count=524288, dbkey="pb"
         )
         xla = FingerprintDB(data, mesh=mesh, scan_mode="bitplane")
         pal = FingerprintDB(
-            data, mesh=mesh, scan_mode="bitplane", use_pallas=True
+            data, mesh=mesh, scan_mode="bitplane", use_pallas=True,
+            interpret=True,
         )
-        assert pal._store.pops3 is not None
         words = data.packed_words()
-        from gpusimilarity_tpu.parallel import sharded
+        from gpusimilarity_jax.parallel import sharded
 
         sharded.LAST_PHASE1_IMPL.clear()
         a = xla.search(words[31337], k=20, cutoff=0.1, dbkey="pb")
@@ -139,6 +143,3 @@ class TestPallasBitplane:
         assert a.ids == b.ids
         assert a.approximate_count == b.approximate_count
         assert b.scores[0] == 1.0
-        # (dense-query / plane-bucket-256 VMEM scaling is covered at kernel
-        # level in tests/test_pallas.py::TestBitplaneKernelMc8 — an
-        # engine-level interpret run at that bucket costs minutes)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from gpusimilarity_tpu.parallel import mesh as mesh_mod
+from gpusimilarity_jax.parallel import mesh as mesh_mod
 
 
 class TestAutoFold:
@@ -29,8 +29,8 @@ class TestAutoFold:
     def test_registry_bitcount_override_errors_when_insufficient(
         self, monkeypatch, rng
     ):
-        from gpusimilarity_tpu.models.registry import DatabaseRegistry
-        import gpusimilarity_tpu.models.registry as reg_mod
+        from gpusimilarity_jax.models.registry import DatabaseRegistry
+        import gpusimilarity_jax.models.registry as reg_mod
 
         # pretend only a tiny amount of memory is free -> needs fold 4
         monkeypatch.setattr(reg_mod, "auto_fold_factor", lambda b: 4)

@@ -6,9 +6,9 @@ import sys
 import numpy as np
 import pytest
 
-from gpusimilarity_tpu.utils import native
-from gpusimilarity_tpu.utils.qtstream import pack_string_chunk, qcompress
-from gpusimilarity_tpu.utils.strings import StringTable, _parse_offsets_py
+from gpusimilarity_jax.utils import native
+from gpusimilarity_jax.utils.qtstream import pack_string_chunk, qcompress
+from gpusimilarity_jax.utils.strings import StringTable, _parse_offsets_py
 
 
 @pytest.fixture(scope="session", autouse=True)
@@ -55,7 +55,7 @@ class TestNative:
 
     def test_popcount_rows_matches_table(self, rng):
         words = rng.integers(0, 2**32, (2048, 32), dtype=np.uint32)
-        from gpusimilarity_tpu.ops.scan import _POPCOUNT_TABLE
+        from gpusimilarity_jax.ops.scan import _POPCOUNT_TABLE
 
         expected = _POPCOUNT_TABLE[words.view(np.uint8)].sum(
             axis=-1, dtype=np.int32
@@ -100,7 +100,7 @@ class TestStringTable:
 
     def test_fsim_roundtrip_with_tables(self, tmp_path, rng):
         from conftest import random_fingerprint_data
-        from gpusimilarity_tpu.utils.fsim import read_fsim, write_fsim
+        from gpusimilarity_jax.utils.fsim import read_fsim, write_fsim
 
         data = random_fingerprint_data(rng, count=50)
         write_fsim(tmp_path / "t.fsim", data)

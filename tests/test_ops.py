@@ -6,7 +6,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gpusimilarity_tpu import ops
+from gpusimilarity_jax import ops
 
 
 def brute_tanimoto(bits_db, bits_q):

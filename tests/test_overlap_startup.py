@@ -15,9 +15,9 @@ import threading
 import numpy as np
 import pytest
 
-from gpusimilarity_tpu.models.fingerprint_db import FingerprintDB
-from gpusimilarity_tpu.models.registry import DatabaseRegistry
-from gpusimilarity_tpu.parallel import sharded
+from gpusimilarity_jax.models.fingerprint_db import FingerprintDB
+from gpusimilarity_jax.models.registry import DatabaseRegistry
+from gpusimilarity_jax.parallel import sharded
 
 from conftest import random_fingerprint_data
 
@@ -111,7 +111,7 @@ def test_search_blocks_until_upload(data):
 
 
 def test_registry_overlapped_startup(data, tmp_path):
-    from gpusimilarity_tpu.utils.tfsim import save_native
+    from gpusimilarity_jax.utils.tfsim import save_native
 
     path = str(tmp_path / "ovl.tfsim")
     save_native(path, data)
@@ -143,7 +143,7 @@ def test_streaming_fold_build_store_matches_prefold(data):
     """build_store(fold_factor=N) must equal fold-then-build."""
     import jax
 
-    from gpusimilarity_tpu.ops import fold as fold_ops
+    from gpusimilarity_jax.ops import fold as fold_ops
 
     full = data.packed_words()
     streamed = sharded.build_store(full, fold_factor=2)

@@ -12,14 +12,14 @@ import os
 import numpy as np
 import pytest
 
-from gpusimilarity_tpu.utils.rdmorgan import (
+from gpusimilarity_jax.utils.rdmorgan import (
     hash_combine,
     hash_range,
     morgan_bits,
     pack_bits,
     smiles_to_morgan_packed,
 )
-from gpusimilarity_tpu.utils.smiles import parse_smiles
+from gpusimilarity_jax.utils.smiles import parse_smiles
 
 FIXTURE = "/root/reference/test/small.fsim"
 
@@ -29,7 +29,7 @@ def _digit(d: int) -> str:
 
 
 def _golden():
-    from gpusimilarity_tpu.utils.fsim import read_fsim
+    from gpusimilarity_jax.utils.fsim import read_fsim
 
     if not os.path.exists(FIXTURE):
         pytest.skip("reference small.fsim fixture not available")
@@ -81,7 +81,7 @@ class TestGoldenFixture:
         drug-like aromatic systems."""
         import re
 
-        from gpusimilarity_tpu.utils.smiles import write_smiles
+        from gpusimilarity_jax.utils.smiles import write_smiles
 
         smiles, golden = _golden()
         mismatches = []
@@ -98,7 +98,7 @@ class TestGoldenFixture:
 
     def test_packed_layout_matches_fsim(self):
         """pack_bits emits the byte/bit layout .fsim files store."""
-        from gpusimilarity_tpu.utils.fsim import read_fsim
+        from gpusimilarity_jax.utils.fsim import read_fsim
 
         smiles, _ = _golden()
         data = read_fsim(FIXTURE)
@@ -114,11 +114,11 @@ class TestRegeneratedGoldenTables:
         {100,86,3,1} approximate counts, ``test_gpusim.cpp:101-128``) —
         they can only hold if every regenerated fingerprint is
         bit-identical to RDKit's."""
-        from gpusimilarity_tpu.models import FingerprintDB
-        from gpusimilarity_tpu.utils.fingerprints import (
+        from gpusimilarity_jax.models import FingerprintDB
+        from gpusimilarity_jax.utils.fingerprints import (
             smiles_to_fingerprint_bin,
         )
-        from gpusimilarity_tpu.utils.fsim import FingerprintData, read_fsim
+        from gpusimilarity_jax.utils.fsim import FingerprintData, read_fsim
 
         if not os.path.exists(FIXTURE):
             pytest.skip("reference small.fsim fixture not available")
@@ -145,14 +145,14 @@ class TestNativeChemParity:
     """native/tsn_chem.cpp must be byte-equivalent to the Python stack."""
 
     def _native(self):
-        from gpusimilarity_tpu.utils import native
+        from gpusimilarity_jax.utils import native
 
         if not native.available():
             pytest.skip("native library not available")
         return native
 
     def _py(self, smi):
-        from gpusimilarity_tpu.utils.smiles import (
+        from gpusimilarity_jax.utils.smiles import (
             SmilesError, parse_smiles, write_smiles,
         )
 
@@ -208,7 +208,7 @@ class TestNativeChemParity:
             assert self._nat(native, smi) == self._py(smi), repr(smi)
 
     def test_front_end_uses_native(self):
-        from gpusimilarity_tpu.utils.fingerprints import (
+        from gpusimilarity_jax.utils.fingerprints import (
             HAVE_RDKIT, smiles_to_fingerprint_bin,
         )
 
@@ -274,7 +274,7 @@ class TestRDKitSemantics:
         )
 
     def test_generator_tags_compatible(self):
-        from gpusimilarity_tpu.utils.fingerprints import (
+        from gpusimilarity_jax.utils.fingerprints import (
             compatible_generators,
         )
 

@@ -9,11 +9,11 @@ import urllib.request
 import numpy as np
 import pytest
 
-from gpusimilarity_tpu.models import DatabaseRegistry
-from gpusimilarity_tpu.serve.batching import BatchingSearcher
-from gpusimilarity_tpu.serve.server import SimilarityServer, parse_form, RequestError
-from gpusimilarity_tpu.utils.fingerprints import smiles_to_fingerprint_bin
-from gpusimilarity_tpu.utils.fsim import FingerprintData, write_fsim
+from gpusimilarity_jax.models import DatabaseRegistry
+from gpusimilarity_jax.serve.batching import BatchingSearcher
+from gpusimilarity_jax.serve.server import SimilarityServer, parse_form, RequestError
+from gpusimilarity_jax.utils.fingerprints import smiles_to_fingerprint_bin
+from gpusimilarity_jax.utils.fsim import FingerprintData, write_fsim
 
 CORPUS = [
     "CCO", "CCCO", "CCCCO", "c1ccccc1", "c1ccncc1", "Cc1ccccc1",
@@ -312,7 +312,7 @@ class TestBatching:
                     _time.sleep(3.0)
                 return [SearchResult() for _ in range(len(queries))]
 
-        from gpusimilarity_tpu.models.results import SearchResult
+        from gpusimilarity_jax.models.results import SearchResult
 
         searcher = BatchingSearcher(FakeRegistry(), window_ms=1.0)
         try:
@@ -347,14 +347,14 @@ class TestBatching:
 
 class TestFDW:
     def test_fdw_execute(self, server):
-        from gpusimilarity_tpu.fdw import TpuSimilarityFDW
+        from gpusimilarity_jax.fdw import JaxSimilarityFDW
 
         class Qual:
             field_name = "query"
             operator = "="
             value = "CCO"
 
-        fdw = TpuSimilarityFDW(
+        fdw = JaxSimilarityFDW(
             {"server": "localhost", "port": str(server.port),
              "db_name": "corpus", "max_results": "4"},
             ["id", "query", "smiles", "similarity"],
@@ -369,9 +369,9 @@ class TestFDW:
         assert rows2 == rows
 
     def test_fdw_no_qual_yields_nothing(self):
-        from gpusimilarity_tpu.fdw import TpuSimilarityFDW
+        from gpusimilarity_jax.fdw import JaxSimilarityFDW
 
-        fdw = TpuSimilarityFDW(
+        fdw = JaxSimilarityFDW(
             {"server": "localhost", "port": "1", "max_results": "4"}, []
         )
         assert list(fdw.execute([], None)) == []
@@ -381,8 +381,8 @@ class TestCLIs:
     def test_createdb_mergedb_roundtrip(self, tmp_path):
         import gzip
 
-        from gpusimilarity_tpu.cli import createdb, mergedb
-        from gpusimilarity_tpu.utils.fsim import read_fsim
+        from gpusimilarity_jax.cli import createdb, mergedb
+        from gpusimilarity_jax.utils.fsim import read_fsim
 
         smi = tmp_path / "in.smi.gz"
         with gzip.open(smi, "wb") as f:
@@ -405,7 +405,7 @@ class TestCLIs:
     def test_search_repl_client(self, server, monkeypatch, capsys):
         import io
 
-        from gpusimilarity_tpu.cli import search as search_cli
+        from gpusimilarity_jax.cli import search as search_cli
 
         monkeypatch.setattr("sys.stdin", io.StringIO("CCO\n\n"))
         search_cli.main(
@@ -422,7 +422,7 @@ class TestProvenanceGuard:
 
     @pytest.fixture(scope="class")
     def reg(self):
-        from gpusimilarity_tpu.utils.fingerprints import generator_tag
+        from gpusimilarity_jax.utils.fingerprints import generator_tag
 
         other = "rdkit" if generator_tag().startswith("builtin") else "builtin"
         foreign = corpus_data()
@@ -437,7 +437,7 @@ class TestProvenanceGuard:
         return registry
 
     def test_mismatch_rejected_matching_and_untagged_pass(self, reg):
-        from gpusimilarity_tpu.serve.server import SearchService
+        from gpusimilarity_jax.serve.server import SearchService
 
         svc = SearchService(reg, window_ms=1.0)
         try:
@@ -456,8 +456,8 @@ class TestProvenanceGuard:
             svc.close()
 
     def test_generator_survives_fsim_and_tfsim_roundtrip(self, tmp_path):
-        from gpusimilarity_tpu.utils.fsim import read_fsim
-        from gpusimilarity_tpu.utils.tfsim import load_native, save_native
+        from gpusimilarity_jax.utils.fsim import read_fsim
+        from gpusimilarity_jax.utils.tfsim import load_native, save_native
 
         data = corpus_data()
         data.generator = "rdkit-morgan-r2-1024"
@@ -472,7 +472,7 @@ class TestProvenanceGuard:
         assert read_fsim(tmp_path / "u.fsim").generator == ""
 
     def test_merge_refuses_mixed_generators(self, tmp_path):
-        from gpusimilarity_tpu.utils.fsim import merge_fsim
+        from gpusimilarity_jax.utils.fsim import merge_fsim
 
         a, b = corpus_data(), corpus_data()
         a.generator = "rdkit-morgan-r2-1024"
@@ -498,30 +498,25 @@ class TestRound2ReviewFixes:
 
     def test_auto_scan_mode_resolves_on_effective_fold(self):
         # resolve_scan_mode takes the EFFECTIVE fold (after the registry's
-        # memory-based auto-fold) — round 2 resolved from the raw --fold
-        # flag, so a >HBM library with default flags served folded-bitplane,
-        # the builder's own documented 5-12x trap (VERDICT r2 Weak #1)
-        from gpusimilarity_tpu.models.registry import resolve_scan_mode
+        # memory-based auto-fold), not the raw --fold flag: a library
+        # beyond device memory with default flags must not serve
+        # folded-bitplane
+        from gpusimilarity_jax.models.registry import resolve_scan_mode
 
-        # unfolded TPU default is bitplane+Pallas
-        assert resolve_scan_mode("auto", False, 1, "tpu") == (
-            "bitplane", True,
-        )
+        # unfolded GPU default is bitplane (whose phase 1 is the kernel)
+        assert resolve_scan_mode("auto", 1, "gpu") == "bitplane"
         # ANY effective fold > 1 picks dense, however the fold arose
-        assert resolve_scan_mode("auto", False, 4, "tpu") == ("dense", True)
-        assert resolve_scan_mode("auto", False, 2, "tpu") == ("dense", True)
-        assert resolve_scan_mode("auto", False, 1, "cpu") == (
-            "dense", False,
-        )
-        assert resolve_scan_mode("bitplane", False, 4, "tpu") == (
-            "bitplane", False,  # explicit mode is never overridden
-        )
+        assert resolve_scan_mode("auto", 4, "gpu") == "dense"
+        assert resolve_scan_mode("auto", 2, "gpu") == "dense"
+        assert resolve_scan_mode("auto", 1, "cpu") == "dense"
+        # an explicit mode is never overridden
+        assert resolve_scan_mode("bitplane", 4, "gpu") == "bitplane"
 
     def test_default_flags_beyond_hbm_library_serves_dense(self, monkeypatch):
         # integration: a library whose AUTO fold factor (memory-based, no
         # --fold flag anywhere) comes out > 1 must load in dense mode
-        from gpusimilarity_tpu.models import registry as registry_mod
-        from gpusimilarity_tpu.utils.fsim import write_fsim
+        from gpusimilarity_jax.models import registry as registry_mod
+        from gpusimilarity_jax.utils.fsim import write_fsim
 
         monkeypatch.setattr(registry_mod, "auto_fold_factor", lambda *a, **k: 4)
         import tempfile
@@ -530,14 +525,14 @@ class TestRound2ReviewFixes:
             path = f"{td}/big.fsim"
             write_fsim(path, corpus_data())
             reg = registry_mod.DatabaseRegistry.from_fsim_files(
-                [path], scan_mode="auto", use_pallas=False
+                [path], scan_mode="auto"
             )
         db = reg.get("big")
         assert db.fold_factor == 4
         assert db.scan_mode == "dense"
 
     def test_return_count_upper_bound(self, server):
-        from gpusimilarity_tpu.serve.server import MAX_RETURN_COUNT
+        from gpusimilarity_jax.serve.server import MAX_RETURN_COUNT
 
         status, payload = post(
             server, "/similarity_search_json",
@@ -550,8 +545,8 @@ class TestRound2ReviewFixes:
     def test_socket_return_count_bounds(self):
         import pytest
 
-        from gpusimilarity_tpu.serve.socket_server import parse_request
-        from gpusimilarity_tpu.utils.qtstream import QtStreamWriter
+        from gpusimilarity_jax.serve.socket_server import parse_request
+        from gpusimilarity_jax.utils.qtstream import QtStreamWriter
 
         def req(count):
             w = QtStreamWriter()
@@ -575,7 +570,7 @@ class TestRound2ReviewFixes:
         layout or skip tail columns (it silently did before the fix)."""
         import numpy as np
 
-        from gpusimilarity_tpu.models import FingerprintDB
+        from gpusimilarity_jax.models import FingerprintDB
         from conftest import random_fingerprint_data
 
         data = random_fingerprint_data(rng, count=9000)
@@ -598,7 +593,7 @@ class TestRound2ReviewFixes:
         assert payload["approximate_count"] == len(CORPUS)
 
     def test_duplicate_database_name_rejected(self):
-        from gpusimilarity_tpu.models import DatabaseRegistry
+        from gpusimilarity_jax.models import DatabaseRegistry
 
         registry = DatabaseRegistry()
         registry.add("lib", corpus_data())
@@ -608,8 +603,8 @@ class TestRound2ReviewFixes:
     def test_device_bitcount_auto_picks_dense(self):
         # --gpu_bitcount 256 implies fold 4 through _global_fold; the
         # registry resolves auto mode from that effective fold
-        from gpusimilarity_tpu.models import registry as registry_mod
-        from gpusimilarity_tpu.utils.fsim import write_fsim
+        from gpusimilarity_jax.models import registry as registry_mod
+        from gpusimilarity_jax.utils.fsim import write_fsim
         import tempfile
 
         with tempfile.TemporaryDirectory() as td:
@@ -631,12 +626,12 @@ class TestRound2ReviewFixes:
         with gzip.open(src, "wb") as f:
             f.write(b"CCO ok1\nCC\xe9O bad1\nCCC ok2\n")
         out = subprocess.run(
-            [sys.executable, "-m", "gpusimilarity_tpu.cli.createdb",
+            [sys.executable, "-m", "gpusimilarity_jax.cli.createdb",
              str(src), str(tmp_path / "out.fsim")],
             capture_output=True, text=True,
         )
         assert out.returncode == 0, out.stderr
-        from gpusimilarity_tpu.utils.fsim import read_fsim
+        from gpusimilarity_jax.utils.fsim import read_fsim
 
         assert read_fsim(tmp_path / "out.fsim").count == 2
 
@@ -648,7 +643,7 @@ class TestNonDefaultBitcount:
 
     @pytest.fixture(scope="class")
     def svc512(self):
-        from gpusimilarity_tpu.serve.server import SearchService
+        from gpusimilarity_jax.serve.server import SearchService
 
         fps, smiles = [], []
         for smi in CORPUS:
@@ -692,7 +687,7 @@ class TestNonDefaultBitcount:
 
 class TestServeTimeouts:
     def test_timeout_plumbs_from_server_to_batcher(self):
-        from gpusimilarity_tpu.serve.server import SearchService
+        from gpusimilarity_jax.serve.server import SearchService
 
         registry = DatabaseRegistry()
         registry.add("c", corpus_data())
@@ -709,8 +704,8 @@ class TestSocketCorruption:
         the corrupt subclass (fail the connection now), not the base
         truncation error (which means 'wait for more bytes' and used to
         stall the connection toward the 16 MiB cap in silence)."""
-        from gpusimilarity_tpu.serve.socket_server import parse_request
-        from gpusimilarity_tpu.utils.qtstream import (
+        from gpusimilarity_jax.serve.socket_server import parse_request
+        from gpusimilarity_jax.utils.qtstream import (
             QtStreamCorruptError,
             QtStreamError,
             QtStreamWriter,

@@ -5,14 +5,14 @@ import socket
 import numpy as np
 import pytest
 
-from gpusimilarity_tpu.models import DatabaseRegistry
-from gpusimilarity_tpu.serve.batching import BatchingSearcher
-from gpusimilarity_tpu.serve.socket_server import (
+from gpusimilarity_jax.models import DatabaseRegistry
+from gpusimilarity_jax.serve.batching import BatchingSearcher
+from gpusimilarity_jax.serve.socket_server import (
     SocketProtocolServer,
     parse_request,
     serialize_response,
 )
-from gpusimilarity_tpu.utils.qtstream import QtStreamReader, QtStreamWriter
+from gpusimilarity_jax.utils.qtstream import QtStreamReader, QtStreamWriter
 
 from conftest import random_fingerprint_data
 
@@ -57,13 +57,13 @@ class TestWireFormat:
 
     def test_partial_request_raises(self):
         raw = encode_request([("db", "")], 1, 5, 0.0, b"\x00" * 128)
-        from gpusimilarity_tpu.utils.qtstream import QtStreamError
+        from gpusimilarity_jax.utils.qtstream import QtStreamError
 
         with pytest.raises(QtStreamError):
             parse_request(raw[: len(raw) // 2])
 
     def test_response_shape(self):
-        from gpusimilarity_tpu.models.results import SearchResult
+        from gpusimilarity_jax.models.results import SearchResult
 
         r = SearchResult(
             smiles=["CCO"], ids=["X1"], scores=[0.75], approximate_count=9
@@ -84,7 +84,7 @@ class TestSocketServer:
         reg.add("sockdb", self.data)
         searcher = BatchingSearcher(reg, window_ms=1.0)
         srv = SocketProtocolServer(
-            searcher, socket_name="tpusim-test.sock", socket_dir=str(tmp_path)
+            searcher, socket_name="jaxsim-test.sock", socket_dir=str(tmp_path)
         )
         srv.start_background()
         yield srv

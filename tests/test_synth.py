@@ -16,12 +16,12 @@ import pytest
 
 import jax
 
-from gpusimilarity_tpu.ops import fold as fold_ops
-from gpusimilarity_tpu.ops.bitplane import query_plane_indices
-from gpusimilarity_tpu.ops.scan import popcount_rows_np, scores_np
-from gpusimilarity_tpu.parallel import sharded
-from gpusimilarity_tpu.parallel.mesh import make_mesh
-from gpusimilarity_tpu.utils import synth
+from gpusimilarity_jax.ops import fold as fold_ops
+from gpusimilarity_jax.ops.bitplane import query_plane_indices
+from gpusimilarity_jax.ops.scan import popcount_rows_np, scores_np
+from gpusimilarity_jax.parallel import sharded
+from gpusimilarity_jax.parallel.mesh import make_mesh
+from gpusimilarity_jax.utils import synth
 
 SEED = 11
 FOLD = 4
@@ -44,7 +44,7 @@ def test_host_device_rows_identical():
 
 
 def test_native_fill_identical():
-    from gpusimilarity_tpu.utils import native
+    from gpusimilarity_jax.utils import native
 
     if not native.available():
         pytest.skip("native library not built")
@@ -79,11 +79,9 @@ def test_density_is_morgan_like():
 
 def test_device_store_matches_host_builder_small():
     """Device SPMD generator == production host builder, byte for byte."""
-    n = synth.aligned_virtual_rows(65536, 8, with_pops3=False)
+    n = synth.aligned_virtual_rows(65536, 8)
     mesh = make_mesh()
-    virt = synth.build_virtual_bitplane_store(
-        n, FOLD, mesh=mesh, seed=SEED, with_pops3=False
-    )
+    virt = synth.build_virtual_bitplane_store(n, FOLD, mesh=mesh, seed=SEED)
     full = synth.virtual_rows_np(np.arange(n), seed=SEED)
     ref = sharded.build_bitplane_store(
         np.asarray(fold_ops.fold_words(full, FOLD)), mesh=mesh
@@ -99,7 +97,7 @@ def big():
     """2M-row virtual store + full-width oracle scores for the test queries."""
     mesh = make_mesh()
     store = synth.build_virtual_bitplane_store(
-        N_ROWS, FOLD, mesh=mesh, seed=SEED, with_pops3=True
+        N_ROWS, FOLD, mesh=mesh, seed=SEED
     )
     full_q = synth.virtual_rows_np(np.array(QUERY_ROWS), seed=SEED)
     oracle = np.empty((len(QUERY_ROWS), N_ROWS), np.float32)
@@ -108,16 +106,6 @@ def big():
         rows = synth.virtual_rows_np(np.arange(lo, lo + slab), seed=SEED)
         oracle[:, lo : lo + slab] = scores_np(rows, full_q)
     return store, full_q, oracle
-
-
-def test_pops3_matches_layout(big):
-    store, _, _ = big
-    from gpusimilarity_tpu.ops.pallas_bitplane import build_pops3
-
-    expect = build_pops3(
-        np.asarray(store.popcounts).astype(np.int32), store.n_shards
-    )
-    assert np.array_equal(np.asarray(store.pops3), expect)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
@@ -129,12 +117,11 @@ def test_folded_search_recovers_full_width_topk(big, use_pallas):
     k_fetch = fold_ops.overfetch_count(K, FOLD)
     search = sharded.build_bitplane_search_fn(
         store, k=k_fetch, similarity="tanimoto", batch=b,
-        plane_bucket=bucket, use_pallas=use_pallas,
+        plane_bucket=bucket, use_pallas=use_pallas, interpret=use_pallas,
     )
-    if use_pallas:
-        assert sharded.LAST_PHASE1_IMPL.get("bitplane") != "small"
     import jax.numpy as jnp
 
+    sharded.LAST_PHASE1_IMPL.clear()
     vals, idx, _ = jax.device_get(
         search(
             jnp.asarray(plane_idx),
@@ -143,6 +130,9 @@ def test_folded_search_recovers_full_width_topk(big, use_pallas):
             jnp.float32(1.0),
             jnp.float32(1.0),
         )
+    )
+    assert sharded.LAST_PHASE1_IMPL["bitplane"] == (
+        "pallas" if use_pallas else "xla"
     )
     for qi in range(b):
         scores, indices = synth.rescore_candidates_np(

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from gpusimilarity_tpu.utils.fsim import read_fsim, write_fsim
-from gpusimilarity_tpu.utils.strings import StringTable
-from gpusimilarity_tpu.utils.tfsim import (
+from gpusimilarity_jax.utils.fsim import read_fsim, write_fsim
+from gpusimilarity_jax.utils.strings import StringTable
+from gpusimilarity_jax.utils.tfsim import (
     convert,
     is_native,
     load_any,
@@ -64,7 +64,7 @@ class TestNativeFormat:
         assert load_any(tmp_path / "n.tfsim").count == 7
 
     def test_registry_loads_native(self, tmp_path, rng):
-        from gpusimilarity_tpu.models import DatabaseRegistry
+        from gpusimilarity_jax.models import DatabaseRegistry
 
         data = random_fingerprint_data(rng, count=30)
         save_native(tmp_path / "natdb.tfsim", data)
@@ -75,7 +75,7 @@ class TestNativeFormat:
         assert r.scores[0] == 1.0
 
     def test_convertdb_cli(self, tmp_path, rng):
-        from gpusimilarity_tpu.cli import convertdb
+        from gpusimilarity_jax.cli import convertdb
 
         data = random_fingerprint_data(rng, count=9, dbkey="cli")
         write_fsim(tmp_path / "c.fsim", data)
@@ -94,9 +94,9 @@ class TestMmapFoldedRescore:
         import numpy as np
 
         from conftest import random_fingerprint_data
-        from gpusimilarity_tpu.models import FingerprintDB
-        from gpusimilarity_tpu.ops.scan import scores_np
-        from gpusimilarity_tpu.utils.tfsim import load_native, save_native
+        from gpusimilarity_jax.models import FingerprintDB
+        from gpusimilarity_jax.ops.scan import scores_np
+        from gpusimilarity_jax.utils.tfsim import load_native, save_native
 
         data = random_fingerprint_data(rng, count=3000, dbkey="mm")
         save_native(tmp_path / "mm.tfsim", data)
@@ -119,8 +119,8 @@ class TestMmapFoldedRescore:
 
 class TestCompactStringTables:
     def test_strided_and_constant_roundtrip(self, tmp_path):
-        from gpusimilarity_tpu.utils.fsim import FingerprintData
-        from gpusimilarity_tpu.utils.strings import (
+        from gpusimilarity_jax.utils.fsim import FingerprintData
+        from gpusimilarity_jax.utils.strings import (
             ConstantStringTable,
             StridedStringTable,
         )
@@ -146,7 +146,7 @@ class TestCompactStringTables:
         back.validate()
 
     def test_strided_rejects_ragged(self):
-        from gpusimilarity_tpu.utils.strings import StridedStringTable
+        from gpusimilarity_jax.utils.strings import StridedStringTable
 
         with pytest.raises(ValueError, match="fixed-width"):
             StridedStringTable.from_strings([b"ab", b"abc"])
@@ -157,8 +157,8 @@ class TestCompactStringTables:
         loader. Plain offsets tables keep writing v1."""
         import json
 
-        from gpusimilarity_tpu.utils.fsim import FingerprintData
-        from gpusimilarity_tpu.utils.strings import ConstantStringTable
+        from gpusimilarity_jax.utils.fsim import FingerprintData
+        from gpusimilarity_jax.utils.strings import ConstantStringTable
 
         n = 4
         compact = FingerprintData(
@@ -200,8 +200,8 @@ class TestCompactStringTables:
     def test_constant_table_with_non_utf8_bytes_roundtrips(self, tmp_path):
         """The string-table API is bytes-based; a constant value that isn't
         UTF-8 must still save/load byte-exactly (latin1-in-JSON escape)."""
-        from gpusimilarity_tpu.utils.fsim import FingerprintData
-        from gpusimilarity_tpu.utils.strings import ConstantStringTable
+        from gpusimilarity_jax.utils.fsim import FingerprintData
+        from gpusimilarity_jax.utils.strings import ConstantStringTable
 
         raw = b"\xff\xfe\x00raw"
         n = 3
@@ -220,7 +220,7 @@ class TestCompactStringTables:
 
 class TestStreamWriter:
     def test_stream_matches_save_native(self, tmp_path, rng):
-        from gpusimilarity_tpu.utils.tfsim import TfsimStreamWriter
+        from gpusimilarity_jax.utils.tfsim import TfsimStreamWriter
 
         data = random_fingerprint_data(rng, count=137, dbkey="sw")
         ref = tmp_path / "ref.tfsim"
@@ -244,7 +244,7 @@ class TestStreamWriter:
         assert list(a.ids) == list(b.ids)
 
     def test_abort_on_error_leaves_nothing(self, tmp_path):
-        from gpusimilarity_tpu.utils.tfsim import TfsimStreamWriter
+        from gpusimilarity_jax.utils.tfsim import TfsimStreamWriter
 
         out = tmp_path / "bad.tfsim"
         with pytest.raises(ValueError):
@@ -254,7 +254,7 @@ class TestStreamWriter:
         assert not list(tmp_path.iterdir())  # temp dir cleaned up
 
     def test_refuses_existing(self, tmp_path, rng):
-        from gpusimilarity_tpu.utils.tfsim import TfsimStreamWriter
+        from gpusimilarity_jax.utils.tfsim import TfsimStreamWriter
 
         data = random_fingerprint_data(rng, count=3)
         out = tmp_path / "dup.tfsim"
@@ -266,7 +266,7 @@ class TestStreamWriter:
         """np.asarray(packed_words, np.uint8) would VALUE-truncate every
         uint32 word to its low byte and write a silently corrupt database
         — the writer must reject non-uint8 arrays outright."""
-        from gpusimilarity_tpu.utils.tfsim import TfsimStreamWriter
+        from gpusimilarity_jax.utils.tfsim import TfsimStreamWriter
 
         out = tmp_path / "typed.tfsim"
         words = np.arange(2 * 32, dtype=np.uint32).reshape(2, 32)
@@ -286,7 +286,7 @@ class TestStreamWriter:
     def test_overwrite_swaps_only_at_close(self, tmp_path, rng):
         """overwrite=True keeps the old database until the new one is
         fully built: an abort mid-write must leave the original intact."""
-        from gpusimilarity_tpu.utils.tfsim import TfsimStreamWriter
+        from gpusimilarity_jax.utils.tfsim import TfsimStreamWriter
 
         data = random_fingerprint_data(rng, count=3, dbkey="old")
         out = tmp_path / "swap.tfsim"
@@ -310,9 +310,9 @@ class TestStreamWriter:
         (VERDICT r3 item 6: no double write through convertdb)."""
         import gzip
 
-        from gpusimilarity_tpu.cli import createdb
-        from gpusimilarity_tpu.models.registry import DatabaseRegistry
-        from gpusimilarity_tpu.utils.fingerprints import (
+        from gpusimilarity_jax.cli import createdb
+        from gpusimilarity_jax.models.registry import DatabaseRegistry
+        from gpusimilarity_jax.utils.fingerprints import (
             smiles_to_fingerprint_bin,
         )
 
@@ -347,14 +347,14 @@ class TestPrewarm:
         serve time; 768M-row run measured 2-3 s/query vs 150 ms warm)."""
         import logging
 
-        from gpusimilarity_tpu.models import FingerprintDB
+        from gpusimilarity_jax.models import FingerprintDB
 
         data = random_fingerprint_data(rng, count=2048, dbkey="pw")
         path = tmp_path / "pw.tfsim"
         save_native(path, data)
         loaded = load_native(path)
         assert isinstance(loaded.fingerprints, np.memmap)
-        with caplog.at_level(logging.INFO, logger="tpusimilarity"):
+        with caplog.at_level(logging.INFO, logger="gpusimilarity_jax"):
             db = FingerprintDB(loaded, fold_factor=2)
         assert any("prewarmed" in r.message for r in caplog.records)
         r = db.search(data.packed_words()[5], k=3, dbkey="pw")
@@ -363,10 +363,10 @@ class TestPrewarm:
     def test_unfolded_or_ram_library_skips_prewarm(self, rng, caplog):
         import logging
 
-        from gpusimilarity_tpu.models import FingerprintDB
+        from gpusimilarity_jax.models import FingerprintDB
 
         data = random_fingerprint_data(rng, count=512, dbkey="pw")
-        with caplog.at_level(logging.INFO, logger="tpusimilarity"):
+        with caplog.at_level(logging.INFO, logger="gpusimilarity_jax"):
             FingerprintDB(data, fold_factor=2)  # RAM-backed: nothing to warm
             FingerprintDB(data)  # unfolded: no rescore path
         assert not any("prewarmed" in r.message for r in caplog.records)
@@ -376,8 +376,8 @@ class TestPrewarm:
         ndarray — the base-chain walk must still classify .tfsim tables
         as mmap-backed (they drove both the multihost string policy and
         the blob prewarm to the wrong branch)."""
-        from gpusimilarity_tpu.parallel.multihost import needs_host_sharding
-        from gpusimilarity_tpu.utils.strings import mmap_backing
+        from gpusimilarity_jax.parallel.multihost import needs_host_sharding
+        from gpusimilarity_jax.utils.strings import mmap_backing
 
         data = random_fingerprint_data(rng, count=64, dbkey="m")
         path = tmp_path / "m.tfsim"
@@ -397,7 +397,7 @@ class TestPrewarm:
         import dataclasses
         import logging
 
-        from gpusimilarity_tpu.models import FingerprintDB
+        from gpusimilarity_jax.models import FingerprintDB
 
         data = random_fingerprint_data(rng, count=2048, dbkey="pwv")
         path = tmp_path / "pwv.tfsim"
@@ -406,7 +406,7 @@ class TestPrewarm:
         viewed = np.asarray(loaded.fingerprints)
         assert not isinstance(viewed, np.memmap)  # the downcast under test
         data2 = dataclasses.replace(loaded, fingerprints=viewed)
-        with caplog.at_level(logging.INFO, logger="tpusimilarity"):
+        with caplog.at_level(logging.INFO, logger="gpusimilarity_jax"):
             db = FingerprintDB(data2, fold_factor=2)
         assert any("prewarmed" in r.message for r in caplog.records)
         r = db.search(data.packed_words()[5], k=3, dbkey="pwv")
@@ -420,7 +420,7 @@ class TestCreatedbOverwrite:
 
     @pytest.mark.parametrize("ext", [".fsim", ".tfsim"])
     def test_refuses_then_forces(self, tmp_path, ext):
-        from gpusimilarity_tpu.cli import createdb
+        from gpusimilarity_jax.cli import createdb
 
         smi = tmp_path / "in.smi"
         smi.write_text("CCO ethanol\nCCN ethylamine\n")
@@ -441,7 +441,7 @@ class TestCreatedbOverwrite:
         """--force must NOT delete the existing output before the
         (potentially hours-long) build: a mid-build failure leaves the
         previous database intact and serving."""
-        from gpusimilarity_tpu.cli import createdb
+        from gpusimilarity_jax.cli import createdb
 
         smi = tmp_path / "in.smi"
         smi.write_text("CCO ethanol\nCCN ethylamine\n")

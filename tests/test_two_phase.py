@@ -14,16 +14,16 @@ import jax
 import numpy as np
 import pytest
 
-from gpusimilarity_tpu.models import FingerprintDB
-from gpusimilarity_tpu.ops.scan import scores_np
-from gpusimilarity_tpu.parallel import sharded
-from gpusimilarity_tpu.parallel.mesh import make_mesh
+from gpusimilarity_jax.models import FingerprintDB
+from gpusimilarity_jax.ops.scan import scores_np
+from gpusimilarity_jax.parallel import sharded
+from gpusimilarity_jax.parallel.mesh import make_mesh
 
 def random_fingerprint_data(rng, count, dbkey):
     """Like conftest.random_fingerprint_data but float32 generation: the
     700k-row geometries here would otherwise spend ~30 s building 5.6 GB of
     float64 uniforms."""
-    from gpusimilarity_tpu.utils.fsim import FingerprintData
+    from gpusimilarity_jax.utils.fsim import FingerprintData
 
     bits = rng.random((count, 1024), dtype=np.float32) < 0.1
     packed = np.packbits(bits, axis=1, bitorder="little")
@@ -70,22 +70,19 @@ class TestDenseTwoPhase:
     def mesh2(self):
         return make_mesh(jax.devices()[:2])
 
-    @pytest.mark.parametrize("use_pallas", [False, True], ids=["xla", "pallas"])
-    def test_two_phase_matches_oracle(self, data, mesh2, use_pallas):
+    # the dense phase 1 has one implementation (XLA); the id records it
+    @pytest.mark.parametrize("impl", ["xla"])
+    def test_two_phase_matches_oracle(self, data, mesh2, impl):
         # 350k cols/shard with chunk 8192: n_shard > 2*chunk and
-        # n_blocks (~171 XLA / ~5470 Pallas) > k_blocks (the k_fetch bucket
-        # floor of 128) => the streaming two-phase branch
-        db = FingerprintDB(
-            data, mesh=mesh2, chunk_cols=8192, use_pallas=use_pallas
-        )
+        # n_blocks (~171) > k_blocks (the k_fetch bucket floor of 128)
+        # => the streaming two-phase branch
+        db = FingerprintDB(data, mesh=mesh2, chunk_cols=8192)
         words = data.packed_words()
         sharded.LAST_PHASE1_IMPL.clear()
         results = db.search_batch(
             words[list(QUERIES)], k=10, cutoff=list(CUTOFFS), dbkey="tp"
         )
-        assert sharded.LAST_PHASE1_IMPL["dense"] == (
-            "pallas" if use_pallas else "xla"
-        )
+        assert sharded.LAST_PHASE1_IMPL["dense"] == impl
         for qi, cutoff, r in zip(QUERIES, CUTOFFS, results):
             order = assert_exact(r, words, qi, 10, cutoff)
             # dense selection tie-breaks by lowest index, exactly like the
@@ -210,7 +207,7 @@ class TestFoldOverfetchCrossPath:
 
         # verify the construction: folded noise strictly below the weakest
         # planted score, and the planted region is tie-free
-        from gpusimilarity_tpu.ops.fold import fold_words
+        from gpusimilarity_jax.ops.fold import fold_words
 
         folded = fold_words(words, fold)
         fs = scores_np(
@@ -223,7 +220,7 @@ class TestFoldOverfetchCrossPath:
             np.sort(fs[rows])[::-1], [s for _, _, s in planted], rtol=1e-6
         )
 
-        from gpusimilarity_tpu.utils.fsim import FingerprintData
+        from gpusimilarity_jax.utils.fsim import FingerprintData
 
         data = FingerprintData(
             dbkey="tp", bitcount=1024, fingerprints=packed,
@@ -247,23 +244,6 @@ class TestFoldOverfetchCrossPath:
             np.asarray(got["dense"][0], np.float32),
             s_full[order].astype(np.float32),
         )
-
-
-class TestKernelMc8:
-    def test_vmem_scaling(self):
-        # scratch 2*p*8*mc8*4 plus the pops3 window 32*8*mc8*4 must stay
-        # within ~12 MiB of VMEM for every bucket (cap 2048: measured 14%
-        # faster than 1024 at 96M rows B=32)
-        for p, expect in [
-            (16, 2048), (64, 2048), (128, 1024), (256, 512),
-            (512, 256), (1024, 128), (2048, 0),
-        ]:
-            mc8 = sharded._bitplane_kernel_mc8(p)
-            assert mc8 == expect, (p, mc8)
-            if mc8:
-                scratch = 2 * p * 8 * mc8 * 4
-                pops3_win = 32 * 8 * mc8 * 4
-                assert scratch + pops3_win <= 12 << 20
 
 
 class TestHierarchicalBlockSelection:

@@ -1,6 +1,6 @@
 """Shared client-side encoders for the reference socket protocol tests."""
 
-from gpusimilarity_tpu.utils.qtstream import QtStreamReader, QtStreamWriter
+from gpusimilarity_jax.utils.qtstream import QtStreamReader, QtStreamWriter
 
 
 def encode_request(dbname_keys, request_num, count, cutoff, fp: bytes) -> bytes:

@@ -8,7 +8,7 @@ fixture-scale inputs (round-3 review, "What's missing" #3). This tool:
 1. writes a ``--rows`` (default 5M) line ``.smi.gz`` corpus of VALID,
    Morgan-diverse SMILES (combinatorial scaffold x substituent
    enumeration — real parser + Morgan work, not bit synthesis);
-2. runs ``python -m gpusimilarity_tpu.cli.createdb corpus.smi.gz
+2. runs ``python -m gpusimilarity_jax.cli.createdb corpus.smi.gz
    lib.tfsim`` as a subprocess, recording wall time, mol/s, and peak RSS
    (``/proc/<pid>/status`` VmHWM of the build process tree);
 3. loads the built library and verifies: row count, and exact self-match
@@ -97,7 +97,7 @@ def peak_rss_kib(pid: int) -> int:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=5_000_000)
-    ap.add_argument("--dir", default="/tmp/tpusim_chem_scale")
+    ap.add_argument("--dir", default="/tmp/jaxsim_chem_scale")
     ap.add_argument("--workers", type=int, default=0)
     ap.add_argument("--keep", action="store_true")
     ap.add_argument("--reuse", action="store_true",
@@ -122,7 +122,7 @@ def main():
         t0 = time.monotonic()
         proc = subprocess.Popen(
             [
-                sys.executable, "-m", "gpusimilarity_tpu.cli.createdb",
+                sys.executable, "-m", "gpusimilarity_jax.cli.createdb",
                 str(corpus), str(lib), "--dbkey", "bulk", "--force",
                 "--workers", str(args.workers),
             ],
@@ -145,8 +145,8 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
-    from gpusimilarity_tpu.models.fingerprint_db import FingerprintDB
-    from gpusimilarity_tpu.utils.tfsim import load_native
+    from gpusimilarity_jax.models.fingerprint_db import FingerprintDB
+    from gpusimilarity_jax.utils.tfsim import load_native
 
     data = load_native(lib)
     assert data.count == args.rows, (data.count, args.rows)

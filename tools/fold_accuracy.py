@@ -42,9 +42,9 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from gpusimilarity_tpu.models.fingerprint_db import FingerprintDB
-    from gpusimilarity_tpu.ops.scan import scores_np
-    from gpusimilarity_tpu.utils.fsim import FingerprintData
+    from gpusimilarity_jax.models.fingerprint_db import FingerprintDB
+    from gpusimilarity_jax.ops.scan import scores_np
+    from gpusimilarity_jax.utils.fsim import FingerprintData
 
     rng = np.random.default_rng(17)
     n, q, k = args.rows, args.queries, args.k
